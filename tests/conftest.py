@@ -10,6 +10,12 @@ import numpy as np
 import pytest
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "requires_cuda: needs a CUDA GPU and nvcc (the test "
+        "skips itself without one)")
+
+
 @pytest.fixture(scope="session")
 def rng():
     import jax
