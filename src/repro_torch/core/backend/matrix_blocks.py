@@ -49,6 +49,13 @@ def solve_spd(s: torch.Tensor, b: torch.Tensor,
     return tri_solve(l, y, lower=True, trans=True)
 
 
+def inverse_spd(s: torch.Tensor, jitter: float = 1e-8) -> torch.Tensor:
+    """Inverse of SPD matrices (batched over leading dims): ``solve_spd``
+    against the identity."""
+    eye = torch.eye(s.shape[-1], dtype=s.dtype, device=s.device)
+    return solve_spd(s, eye.expand(s.shape), jitter)
+
+
 def qr(a: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Thin QR (MSCKF nullspace projection)."""
     return torch.linalg.qr(a)

@@ -6,8 +6,9 @@ scenario rule table of the five shipped scenario specs
 lowest priority first, so the highest-priority matching rule wins; the
 priority-0 unconditional rule (``slam``) is the fallback.
 
-The port runs the ``vio`` scenario only so far; ``require_ported``
-raises for every other scenario instead of running it as ``vio``.
+The port runs ``vio``, ``slam``, ``drone_vio`` and ``vio_degraded``;
+``require_ported`` raises for ``registration`` instead of running it as
+another scenario.
 """
 from __future__ import annotations
 
@@ -37,7 +38,8 @@ MODE_TO_ID = {Mode.VIO: MODE_VIO, Mode.SLAM: MODE_SLAM,
               Mode.VIO_DEGRADED: MODE_VIO_DEGRADED}
 
 # scenarios whose pipeline this package runs
-PORTED = frozenset({Mode.VIO})
+PORTED = frozenset({Mode.VIO, Mode.SLAM, Mode.DRONE_VIO,
+                    Mode.VIO_DEGRADED})
 
 
 def mode_id(mode: Mode) -> int:

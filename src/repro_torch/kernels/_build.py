@@ -21,6 +21,8 @@ import tempfile
 import time
 from pathlib import Path
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # no --use_fast_math: atan2f/sinf/cosf stay the accurate ones, and the
@@ -40,6 +42,9 @@ SIGNATURES = {
                         _P],
     "cov_update_launch": [_P, _P, _P, _P, _I, _I, _P, _P],
     "cov_update_smem_bytes": [_I],
+    "marg_normal_launch": [_P, _P, _P, _I, _I, _F, _P, _P, _P],
+    "marg_schur_launch": [_P, _P, _P, _I, _I, _P, _P, _P],
+    "marg_max_k": [],
 }
 
 _LIB = None
@@ -127,6 +132,17 @@ def lib() -> ctypes.CDLL:
         handle.cuda_error_string.restype = ctypes.c_char_p
         _LIB = handle
     return _LIB
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    """A tensor's data pointer as a C argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream() -> ctypes.c_void_p:
+    """PyTorch's current CUDA stream as a C argument (kernels launch on
+    it)."""
+    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
 
 def check(err: int, name: str) -> None:

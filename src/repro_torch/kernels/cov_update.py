@@ -13,8 +13,6 @@ tensor, and for a CUDA tensor launches the kernel or raises;
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
@@ -87,10 +85,8 @@ def fused_update(P: torch.Tensor, F_seq: torch.Tensor, Q: torch.Tensor,
                                                          ).reshape(1)
     out = torch.empty_like(P)
     err = lib.cov_update_launch(
-        ctypes.c_void_p(P.data_ptr()), ctypes.c_void_p(F_seq.data_ptr()),
-        ctypes.c_void_p(Q.data_ptr()), ctypes.c_void_p(gate.data_ptr()),
-        d, K, ctypes.c_void_p(out.data_ptr()),
-        ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        _build.ptr(P), _build.ptr(F_seq), _build.ptr(Q), _build.ptr(gate),
+        d, K, _build.ptr(out), _build.stream())
     _build.check(err, "cov_update")
     LAUNCHES["cov"] += 1
     return out

@@ -37,14 +37,6 @@ def supported(h: int, w: int, cell: int) -> bool:
     return h % cell == 0 and w % cell == 0 and h >= cell and w >= cell
 
 
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _require(t: torch.Tensor, name: str, dtype, ndim: int) -> None:
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -100,9 +92,10 @@ def fe_detect(img: torch.Tensor, cfg):
     idx = torch.empty((H // cell, W // cell), dtype=torch.int32,
                       device=img.device)
     err = _build.lib().fe_detect_launch(
-        _ptr(img), H, W, ctypes.cast(taps_c, ctypes.c_void_p), len(taps),
-        float(cfg.fast_threshold), cfg.fast_arc_len, cell, _ptr(smooth),
-        _ptr(best), _ptr(idx), _stream())
+        _build.ptr(img), H, W, ctypes.cast(taps_c, ctypes.c_void_p),
+        len(taps), float(cfg.fast_threshold), cfg.fast_arc_len, cell,
+        _build.ptr(smooth), _build.ptr(best), _build.ptr(idx),
+        _build.stream())
     _build.check(err, "fe_detect")
     LAUNCHES["A"] += 1
     return smooth, best, idx
@@ -137,9 +130,10 @@ def fc_describe(smooth: torch.Tensor, yx: torch.Tensor):
                          device=smooth.device)
     if n:
         err = _build.lib().fc_describe_launch(
-            _ptr(smooth), H, W, _ptr(yx), n, _ptr(cdy), _ptr(cdx),
-            cdy.shape[0], _ptr(pairs), orb.N_BITS, H - 1.001, W - 1.001,
-            _ptr(desc), _ptr(packed), _stream())
+            _build.ptr(smooth), H, W, _build.ptr(yx), n, _build.ptr(cdy),
+            _build.ptr(cdx), cdy.shape[0], _build.ptr(pairs), orb.N_BITS,
+            H - 1.001, W - 1.001, _build.ptr(desc), _build.ptr(packed),
+            _build.stream())
         _build.check(err, "fc_describe")
         LAUNCHES["B"] += 1
     return desc, packed
@@ -196,9 +190,9 @@ def mo_match(pk_l, yxl, vl, pk_r, yxr, vr, *, max_disparity: int,
     disp = torch.empty(nl, dtype=torch.float32, device=pk_l.device)
     if nl:
         err = _build.lib().mo_match_launch(
-            _ptr(pk_l), _ptr(yxl), _ptr(vl), _ptr(pk_r), _ptr(yxr), _ptr(vr),
-            nl, nr, int(max_disparity), int(row_tol), _ptr(idx), _ptr(best),
-            _ptr(disp), _stream())
+            *(_build.ptr(t) for t in (pk_l, yxl, vl, pk_r, yxr, vr)),
+            nl, nr, int(max_disparity), int(row_tol), _build.ptr(idx),
+            _build.ptr(best), _build.ptr(disp), _build.stream())
         _build.check(err, "mo_match")
         LAUNCHES["C"] += 1
     return idx, best, disp

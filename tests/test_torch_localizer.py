@@ -1,5 +1,6 @@
-"""The slice as a whole: repro_torch's ``vio`` ``Localizer`` on the CPU
-against repro's on the same sequence, plus the localizer's contracts.
+"""The slice as a whole: repro_torch's ``Localizer`` on the CPU against
+repro's on the same sequence (``vio``, and the ``slam``, ``drone_vio``
+and ``vio_degraded`` scenarios), plus the localizer's contracts.
 
 Bound: a per-frame position gap of at most 1e-2 m, a quarter of the
 ~0.04 m VIO RMSE on this sequence. Measured on the CPU: ~3e-8 m.
@@ -52,12 +53,20 @@ def _start(seq):
 
 
 @pytest.fixture(scope="module")
-def repro_runs(synthetic_sequence, small_cfg):
-    """repro's trajectories (one Localizer, one compiled chunk program):
-    all 14 frames, then frames 0-5 and 6-9 with the state at frame 6."""
+def repro_loc(synthetic_sequence, small_cfg):
+    """One repro Localizer for the module: it compiles its chunk program
+    (every scenario) once."""
+    return JLocalizer(small_cfg, synthetic_sequence.cam, window=8)
+
+
+@pytest.fixture(scope="module")
+def repro_runs(synthetic_sequence, repro_loc):
+    """repro's trajectories: all 14 frames, then frames 0-5 and 6-9 with
+    the state at frame 6."""
     seq = synthetic_sequence
     dt = seq.dt / seq.imu_per_frame
-    loc = JLocalizer(small_cfg, seq.cam, window=8)
+    loc = repro_loc
+    loc.trajectory = []
     st = loc.run(loc.init_state(**_start(seq)), *_inputs(seq, 0, N_FRAMES),
                  JEnv(True, False), dt, chunk=4)
     full = np.asarray(loc.trajectory)
@@ -129,11 +138,43 @@ def test_run_equals_step(synthetic_sequence, small_cfg):
     assert loc_r.dispatch_count == loc_s.dispatch_count == n
 
 
+SCENARIO_ENVS = {
+    "slam": (Environment(False, False), JEnv(False, False)),
+    "drone_vio": (Environment(False, False, airborne=True),
+                  JEnv(False, False, airborne=True)),
+    "vio_degraded": (Environment(True, False, gps_degraded=True),
+                     JEnv(True, False, gps_degraded=True)),
+}
+
+
+@pytest.mark.parametrize("scenario", sorted(SCENARIO_ENVS))
+def test_scenarios_match_repro(synthetic_sequence, small_cfg, repro_loc,
+                               scenario):
+    """The scenarios beside ``vio`` (``slam``: BoW + windowed BA;
+    ``drone_vio``: the spine only; ``vio_degraded``: GPS fused at
+    sigma 0.25) over all 14 frames, chunk 4, against repro."""
+    seq = synthetic_sequence
+    env, jenv = SCENARIO_ENVS[scenario]
+    dt = seq.dt / seq.imu_per_frame
+    repro_loc.trajectory = []
+    repro_loc.ba_runs = 0
+    repro_loc.run(repro_loc.init_state(**_start(seq)),
+                  *_inputs(seq, 0, N_FRAMES), jenv, dt, chunk=4)
+    loc = Localizer(_port_cfg(small_cfg), seq.cam, window=8, device="cpu")
+    loc.run(loc.init_state(**_start(seq)), *_inputs(seq, 0, N_FRAMES), env,
+            dt, chunk=4)
+    traj, ref = np.asarray(loc.trajectory), np.asarray(repro_loc.trajectory)
+    gap = np.linalg.norm(traj - ref, axis=1).max()
+    print(f"{scenario}: per-frame position gap to repro: max {gap:.3g} m")
+    assert traj.shape == (N_FRAMES, 3)
+    assert gap <= GAP_BOUND
+    assert loc.ba_runs == repro_loc.ba_runs
+    assert (loc.ba_runs > 0) == (scenario == "slam")
+
+
 @pytest.mark.parametrize("env,scenario", [
-    (Environment(False, False), "slam"),
-    (Environment(False, True), "registration"),
-    (Environment(False, False, airborne=True), "drone_vio"),
-    (Environment(True, False, gps_degraded=True), "vio_degraded"),
+    pytest.param(Environment(False, True), "registration",
+                 id="env1-registration"),
 ])
 def test_unported_scenarios_raise(synthetic_sequence, small_cfg, env,
                                   scenario):
