@@ -127,8 +127,9 @@ def bound(nbytes: float, ops: float):
 
 
 @contextlib.contextmanager
-def plain_versions():
-    """Route every kernel wrapper to its plain PyTorch version."""
+def plain_versions(marg_normal=None):
+    """Route every kernel wrapper to its plain PyTorch version (and
+    ``accumulate_normal`` to ``marg_normal`` where one is given)."""
     from repro_torch.kernels import cov_update as cu
     from repro_torch.kernels import frontend_fused as ff
     from repro_torch.kernels import marg_schur as ms
@@ -136,8 +137,8 @@ def plain_versions():
              ms.accumulate_normal, ms.accumulate)
     ff.fe_detect, ff.fc_describe = ff.fe_detect_ref, ff.fc_describe_ref
     ff.mo_match, cu.fused_update = ff.mo_match_ref, cu.update_ref
-    ms.accumulate_normal, ms.accumulate = (ms.accumulate_normal_ref,
-                                           ms.accumulate_ref)
+    ms.accumulate_normal = marg_normal or ms.accumulate_normal_ref
+    ms.accumulate = ms.accumulate_ref
     try:
         yield
     finally:
@@ -293,6 +294,24 @@ def marg_checks(cases: dict) -> dict:
                 worst[entry + "_abs"], (Y - Yp).abs().max().item(),
                 (y - yp).abs().max().item())
     return worst
+
+
+def broken_normal(what: str):
+    """A plain ``accumulate_normal`` that is wrong on purpose, for the
+    slam path's controls: the last landmark with an observation dropped,
+    or G laid out pose-minor."""
+    from repro_torch.kernels import marg_schur as ms
+
+    def normal(r, jx, jl, *, jitter=1e-4):
+        g, a, b = ms._normal_tile(r, jx, jl, jitter)
+        k, m = jx.shape[:2]
+        if what == "landmark dropped":
+            seen = torch.nonzero((jl != 0).flatten(2).any(2).any(0))
+            keep = torch.arange(m, device=r.device) != int(seen[-1])
+            return ms._tile_terms(g[keep], a[keep], b[keep])
+        return ms._tile_terms(
+            g.reshape(m, k, 6, 3).transpose(1, 2).reshape(m, 6 * k, 3), a, b)
+    return normal
 
 
 def map_diff(a, b) -> dict:
@@ -633,30 +652,49 @@ def main() -> int:
         f"max {st_s.ba.b_prior.abs().max().item():.3g}, last cost "
         f"{st_s.ba.last_cost.item():.3g}")
 
+    def prior_gaps(st_o):
+        """H_prior's gap relative to its largest entry, b_prior's
+        absolute gap, against the kernel path's."""
+        return (rel_err(st_s.ba.H_prior, st_o.ba.H_prior),
+                (st_s.ba.b_prior - st_o.ba.b_prior).abs().max().item())
+
     with plain_versions():
         loc_sp = Localizer(EDX_CAR, seq.cam, window=WINDOW)
         st_sp, slam_plain_ms = drive(loc_sp, senv, SLAM_FRAMES)
     sgap_traj = float(np.abs(np.asarray(loc_sp.trajectory) - straj).max())
-    h_gap = rel_err(st_s.ba.H_prior, st_sp.ba.H_prior)
-    b_gap = (st_s.ba.b_prior - st_sp.ba.b_prior).abs().max().item()
+    h_gap, b_gap = prior_gaps(st_sp)
     c_gap = abs(st_s.ba.last_cost.item() - st_sp.ba.last_cost.item())
     md = map_diff(loc_s, loc_sp)
     slam_plain_ms_frame = per_frame(slam_plain_ms, 0)
     # BA is feedback-free, so the trajectory cannot show a broken marg
-    # kernel; the prior can: H_prior within 2e-2 of its largest entry
-    # (the kernel's summation order moves Y by ~1e-3 on these windows,
-    # see MARG_FLOOR, and the Schur tail's cancellation can amplify
-    # that), b_prior within 1e-2 absolute and
-    # the cost within 1e-6 (both near rounding noise: the window's
-    # observations are its own landmarks' projections)
+    # kernel; the prior can. The kernel's summation order moves H_prior
+    # by 1.22e-4 of its largest entry and b_prior by 3.5e-4 (both
+    # repeat to the digit run to run: every reduction's order is fixed),
+    # so the limits sit at ~8x and ~6x those; the same run with a
+    # broken accumulate_normal (the controls) must fail them. The cost
+    # is held within 1e-6 (rounding noise: the window's observations
+    # are its own landmarks' projections).
+    h_lim, b_lim = 1e-3, 2e-3
+    prior_ctl = {}
+    for what in ("landmark dropped", "G pose-minor"):
+        with plain_versions(broken_normal(what)):
+            loc_c = Localizer(EDX_CAR, seq.cam, window=WINDOW)
+            st_c, _ = drive(loc_c, senv, SLAM_FRAMES)
+        prior_ctl[what] = prior_gaps(st_c)
     log(f"[main] same slam run with the plain versions on the card: "
         f"position gap {sgap_traj:.3g} m (bound 1e-2), H_prior relative "
-        f"gap {h_gap:.3g} (bound 2e-2), b_prior gap {b_gap:.3g} (bound "
-        f"1e-2), last cost gap {c_gap:.3g} (bound 1e-6), differing map "
+        f"gap {h_gap:.3g} (bound {h_lim}), b_prior gap {b_gap:.3g} (bound "
+        f"{b_lim}), last cost gap {c_gap:.3g} (bound 1e-6), differing map "
         f"points / descriptor bits / histogram words {md} (required 0), "
-        f"{slam_plain_ms_frame:.2f} ms/frame")
-    check(sgap_traj <= 1e-2 and h_gap <= 2e-2 and b_gap <= 1e-2
+        f"{slam_plain_ms_frame:.2f} ms/frame; controls that must fail "
+        f"the prior limits (H_prior/b_prior gap): "
+        + ", ".join(f"{w} {c[0]:.3g}/{c[1]:.3g}"
+                    for w, c in prior_ctl.items()))
+    check(sgap_traj <= 1e-2 and h_gap <= h_lim and b_gap <= b_lim
           and c_gap <= 1e-6, "slam kernel path and plain path diverge")
+    for what, (ch, cb) in prior_ctl.items():
+        check(not (ch <= h_lim and cb <= b_lim),
+              f"the slam prior limits cannot tell a path with {what}")
     check(not any(md.values()), "the SLAM maps of the kernel and plain "
           "paths differ")
 
@@ -684,10 +722,10 @@ def main() -> int:
     mg, ma, mb = ms._normal_tile(mr, mjx, mjl, 1e-4)
     mg = mg.contiguous()
     # operations per landmark of the marginalization kernels: the 3x3
-    # adjugate inverse (~40), G A^-1 (D x 3 x 3 MACs), Y (D x D x 3 MACs)
-    # and y (D x 3 MACs); accumulate_normal also assembles hpl
-    # (K x 18 x 2 MACs), hll (9 x K x 2) and bl (3 x K x 2)
-    marg_ops = mm * (40 + 2 * (marg_d * 9 + marg_d * marg_d * 3
+    # adjugate inverse (~40), G A^-1 (D x 3 x 3 MACs), Y (symmetric, so
+    # D(D+1)/2 x 3 MACs) and y (D x 3 MACs); accumulate_normal also
+    # assembles hpl (K x 18 x 2 MACs), hll (9 x K x 2) and bl (3 x K x 2)
+    marg_ops = mm * (40 + 2 * (marg_d * 9 + marg_d * (marg_d + 1) // 2 * 3
                                + marg_d * 3))
     marg_out = (marg_d * marg_d + marg_d) * 4
     # operations per unit: A ~150 per pixel (blur 2 x 13 mul+add, FAST
@@ -751,10 +789,12 @@ def main() -> int:
         evs = device_events(kern)
         mine = [e for e in evs if f"{name}_kernel" in e[0]]
         check(bool(mine), f"profiler saw no {name}_kernel")
-        k_ms = sum(b - a for _, a, b in mine) / REPS / 1e3
+        # per launch the profiler saw (it may record fewer than REPS)
+        k_ms = sum(b - a for _, a, b in mine) / len(mine) / 1e3
         p_ms = busy_us(device_events(plain)) / REPS / 1e3
         ev_ms, pev_ms = time_ms(kern), time_ms(plain)
-        log(f"[timing] {name}: kernel {k_ms * 1e3:.2f} us, plain "
+        log(f"[timing] {name}: kernel {k_ms * 1e3:.2f} us over "
+            f"{len(mine)} of {REPS} launches, plain "
             f"{p_ms * 1e3:.1f} us (torch.profiler device time); per call "
             f"incl. host submit "
             f"(CUDA events) kernel {ev_ms * 1e3:.1f} us, plain "
@@ -820,7 +860,8 @@ def main() -> int:
         "plain_ms_per_frame": slam_plain_ms_frame,
         "ba_round_ms": ba_round_ms, "steady_ba_round_ms": steady_rounds,
         "plain_gap_m": sgap_traj, "H_prior_rel_gap": h_gap,
-        "b_prior_gap": b_gap, "last_cost_gap": c_gap, "map_diff": md,
+        "b_prior_gap": b_gap, "prior_limits": [h_lim, b_lim],
+        "prior_controls": prior_ctl, "last_cost_gap": c_gap, "map_diff": md,
         "map_points": n_points, "host_syncs": slam_syncs,
         "profile": slam_profile}}), flush=True)
     print(smi, flush=True)

@@ -223,8 +223,13 @@ class Localizer:
         if any(slam):
             leaves += [torch.stack([getattr(o.fr, k) for o in outs])
                        for k in ("yx", "disparity", "stereo_valid", "desc")]
+            # frames without the BoW stage carry no histogram: zeros,
+            # which the host stage never reads
+            zero = torch.zeros_like(next(o.hist for o, s in zip(outs, slam)
+                                         if s))
             leaves += [torch.stack([o.q for o in outs]),
-                       torch.stack([o.hist for o in outs])]
+                       torch.stack([zero if o.hist is None else o.hist
+                                    for o in outs])]
         host = to_host(leaves)
         p = host[0]
         for j, is_slam in enumerate(slam):

@@ -7,7 +7,7 @@ stages (``GATED``: the BoW histogram and windowed BA + marginalization
 of ``slam``). ``core.scenarios`` names the stages each scenario runs.
 Signatures: ``spine(ctx, carry) -> FrameCarry``,
 ``switch(ctx, carry, params) -> MsckfState``,
-``gated(ctx, carry, params) -> FrameCarry``.
+``gated(ctx, carry) -> FrameCarry``.
 
 On the card the heavy blocks run the hand-written kernels:
 ``_frontend`` goes through ``kernels.frontend_fused`` (kernels A, B, C),
@@ -150,14 +150,14 @@ def _gps_fusion(ctx: FrameCtx, c: FrameCarry, params):
     return fusion.gps_update(c.filt, c.gps, sigma_gps=float(sigma))[0]
 
 
-def _bow_histogram(ctx: FrameCtx, c: FrameCarry, params) -> FrameCarry:
+def _bow_histogram(ctx: FrameCtx, c: FrameCarry) -> FrameCarry:
     """BoW histogram of this frame's descriptors — the host map stage
     records it with the keyframe without touching the device."""
     return _replace(c, hist=tracking.bow_histogram(c.fr.desc, c.fr.valid,
                                                    ctx.vocab))
 
 
-def _ba_marginalize(ctx: FrameCtx, c: FrameCarry, params) -> FrameCarry:
+def _ba_marginalize(ctx: FrameCtx, c: FrameCarry) -> FrameCarry:
     """SLAM windowed BA + Schur marginalization (paper Sec. VI-A's
     variation-dominating kernel): push the post-frame pose as a keyframe
     and, when at least ``ba_min_keyframes`` are in the window and the
@@ -168,7 +168,7 @@ def _ba_marginalize(ctx: FrameCtx, c: FrameCarry, params) -> FrameCarry:
     ba = ba_mod.push_keyframe(c.ba, R, c.filt.p)
     n_kf = min(c.host_n_kf + 1, ba.kf_valid.shape[0])
     ran = (n_kf >= be.ba_min_keyframes
-           and c.host_frame_idx % params["ba_every"] == 0)
+           and c.host_frame_idx % be.ba_every == 0)
     if ran:
         pts, pv = ba_mod.backproject_stereo(
             c.fr.yx, c.fr.disparity, c.fr.stereo_valid, R, c.filt.p,

@@ -3,15 +3,13 @@
 Every scenario runs the shared spine (``primitives.SPINE``), then its
 switch stages (filter-only work, with their params), then its gated
 stages (``primitives.GATED``). ``host_stage`` names the per-frame host
-bookkeeping the localizer replays from the step's outputs;
-``window``/``imu_rate_hz``/``ba_every`` are the spec's knobs, which
-``apply_spec`` folds into a config when a localizer is built for one
-scenario. The table is ``repro``'s five registered specs in mode-id
-order; registering new scenarios is not ported.
+bookkeeping the localizer replays from the step's outputs. The table is
+``repro``'s five registered specs in mode-id order; their per-scenario
+knobs (window, IMU rate, BA cadence) and registering new scenarios are
+not ported: every scenario runs at the localizer's config.
 """
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass
 from typing import Mapping, Optional, Tuple
 
@@ -24,9 +22,6 @@ class ScenarioSpec:
     switch: Tuple[Tuple[str, Mapping], ...] = ()   # (stage, params)
     gated: Tuple[str, ...] = ()
     host_stage: Optional[str] = None
-    window: Optional[int] = None
-    imu_rate_hz: Optional[int] = None
-    ba_every: Optional[int] = None
 
 
 # indexed by mode id (``environment.MODE_TO_ID``)
@@ -36,25 +31,7 @@ SPECS = (
                  gated=("bow_histogram", "ba_marginalize"),
                  host_stage="slam"),
     ScenarioSpec(name=Mode.REGISTRATION.value, host_stage="registration"),
-    ScenarioSpec(name=Mode.DRONE_VIO.value, window=12, imu_rate_hz=400),
+    ScenarioSpec(name=Mode.DRONE_VIO.value),
     ScenarioSpec(name=Mode.VIO_DEGRADED.value,
                  switch=(("gps_fusion", {"sigma_gps": 0.25}),)),
 )
-
-
-def gated_params(spec: ScenarioSpec, be_cfg) -> dict:
-    """Per-scenario knobs of the gated stages: the BA cadence (spec knob,
-    else the config's)."""
-    return {"ba_every": int(spec.ba_every or be_cfg.ba_every)}
-
-
-def apply_spec(cfg, spec: ScenarioSpec):
-    """Derive a scenario-shaped config: ``(cfg', window)`` with the spec's
-    rate/cadence knobs folded into the backend config and the clone-window
-    override resolved (None = config default)."""
-    be = dataclasses.replace(
-        cfg.backend,
-        imu_rate_hz=spec.imu_rate_hz or cfg.backend.imu_rate_hz,
-        ba_every=spec.ba_every or cfg.backend.ba_every)
-    return (dataclasses.replace(cfg, backend=be),
-            spec.window or be.msckf_window)

@@ -71,14 +71,13 @@ class FrameInputs(NamedTuple):
 
 class FrameOutputs(NamedTuple):
     """Per-frame outputs: what the host stage reads after the step.
-    ``fr`` is None on padding frames; ``hist`` is zeros on frames whose
-    scenario has no BoW stage; ``ba_cost`` is the latest BA pass's cost;
-    ``ba_ran`` is a host bool (the trigger is decided on the host)."""
+    ``fr`` is None on padding frames; ``hist`` is None on frames whose
+    scenario has no BoW stage and on padding frames; ``ba_ran`` is a
+    host bool (the trigger is decided on the host)."""
     fr: Optional[FrontendResult]
-    p: torch.Tensor        # (3,) post-frame position
-    q: torch.Tensor        # (4,) post-frame orientation quaternion
-    hist: torch.Tensor     # (V,) BoW histogram
-    ba_cost: torch.Tensor  # () float32
+    p: torch.Tensor                 # (3,) post-frame position
+    q: torch.Tensor                 # (4,) post-frame orientation quaternion
+    hist: Optional[torch.Tensor]    # (V,) BoW histogram
     ba_ran: bool
 
 
@@ -107,22 +106,15 @@ def localize_step(state: LocalizerState, host: HostMirror, img_l, img_r,
         c = stage(ctx, c)
     for name, params in spec.switch:
         c = dataclasses.replace(c, filt=prim.SWITCH[name](ctx, c, params))
-    params = scenarios.gated_params(spec, be_cfg)
     for name in spec.gated:
-        c = prim.GATED[name](ctx, c, params)
+        c = prim.GATED[name](ctx, c)
     new_state = LocalizerState(
         filt=c.filt, tracks_uv=c.tracks_uv, tracks_valid=c.tracks_valid,
         prev_img=c.prev_img, prev_yx=c.prev_yx, prev_valid=c.prev_valid,
         frame_idx=c.frame_idx + 1, ba=c.ba)
-    hist = c.hist if c.hist is not None else _zero_hist(vocab)
     return new_state, HostMirror(host.frame_idx + 1, c.host_n_kf), \
-        FrameOutputs(fr=c.fr, p=c.filt.p, q=c.filt.q, hist=hist,
-                     ba_cost=c.ba.last_cost, ba_ran=c.ba_ran)
-
-
-def _zero_hist(vocab: torch.Tensor) -> torch.Tensor:
-    return torch.zeros(2 ** vocab.shape[0], dtype=torch.float32,
-                       device=vocab.device)
+        FrameOutputs(fr=c.fr, p=c.filt.p, q=c.filt.q, hist=c.hist,
+                     ba_ran=c.ba_ran)
 
 
 def frame_transition(state: LocalizerState, host: HostMirror,
@@ -132,9 +124,7 @@ def frame_transition(state: LocalizerState, host: HostMirror,
     (which outputs the unchanged pose and no frontend result)."""
     if not bool(inp.active):
         return state, host, FrameOutputs(
-            fr=None, p=state.filt.p, q=state.filt.q,
-            hist=_zero_hist(bound["vocab"]), ba_cost=state.ba.last_cost,
-            ba_ran=False)
+            fr=None, p=state.filt.p, q=state.filt.q, hist=None, ba_ran=False)
     return localize_step(state, host, inp.img_l, inp.img_r, inp.accel,
                          inp.gyro, inp.gps, inp.mode, dt_imu, **bound)
 

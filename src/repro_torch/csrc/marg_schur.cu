@@ -14,10 +14,12 @@
 //       reduction from assembled g (M,D,3), a (M,3,3), b (M,3).
 //
 // Bound on an H100 SXM at EDX-CAR (K = 10, M = 64): accumulate_normal reads
-// 51,200 B and writes 14,640 B (~20 ns at 3.35 TB/s) and does ~1.5 MFLOP,
-// dominated by the 60 x 60 x 3 outer products of each landmark (~23 ns at
-// 67 TFLOP/s fp32). Both entries are launch- and latency-bound: the whole
-// output is 3,660 floats and every landmark adds into all of it.
+// 51,200 B and writes 14,640 B (~20 ns at 3.35 TB/s) and needs ~0.87 MFLOP,
+// dominated by the outer products of each landmark into the 1,830 entries of
+// Y's upper triangle (Y is symmetric; ~13 ns at 67 TFLOP/s fp32), so its
+// bound is the bytes; accumulate reads 49,152 B, bound ~19 ns. Both entries
+// are launch- and latency-bound: the whole output is 3,660 floats and every
+// landmark adds into all of it. The kernel forms all of Y, not its triangle.
 //
 // Design (simple and right first): one CTA per call. Phase 1 stages one
 // tile of TILE landmarks in shared memory (the raw Jacobian slabs, or the
